@@ -31,6 +31,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "timeout_factor(k): scale the REPRO_TEST_TIMEOUT "
         "watchdog budget by k for this test")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one")
 
 
 @pytest.fixture(autouse=_TEST_TIMEOUT > 0)
